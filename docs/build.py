@@ -26,7 +26,7 @@ PAGES = [
     # (source, output name, nav title)
     ("index.md", "index.html", "Home"),
     ("formulation.md", "formulation.html", "Model formulation"),
-    ("architecture.md", "architecture.html", "TPU architecture"),
+    ("architecture.md", "architecture.html", "Architecture"),
     ("parallelism.md", "parallelism.html", "Parallelism (DD)"),
     ("@literate:examples/bowl_mixing.py", "example_bowl_mixing.html",
      "Example: bowl mixing"),
@@ -64,10 +64,10 @@ h2 { border-bottom: 1px solid #e3e8ee; padding-bottom: 0.2rem; }
 
 TEMPLATE = """<!DOCTYPE html>
 <html><head><meta charset="utf-8">
-<title>{title} — nupgcm_tpu</title>
+<title>{title} — nupgcm</title>
 <style>{css}</style></head>
 <body><div class="wrap">
-<nav><h2>nupgcm_tpu</h2>{nav}</nav>
+<nav><h2>nupgcm</h2>{nav}</nav>
 <main>{body}</main>
 </div></body></html>
 """
@@ -111,12 +111,12 @@ def api_markdown():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    import nupgcm_tpu as npg
-    from nupgcm_tpu.parallel.dd import DDModel
-    from nupgcm_tpu.parallel.sharding import make_device_mesh
+    import nupgcm as npg
+    from nupgcm.parallel.dd import DDModel
+    from nupgcm.parallel.sharding import make_device_mesh
 
     out = ["# API reference\n",
-           "Public surface of `import nupgcm_tpu as npg` (the analog of "
+           "Public surface of `import nupgcm as npg` (the analog of "
            "the reference's export list, reference src/nuPGCM.jl:90-144), "
            "generated from the live docstrings.\n"]
 
@@ -150,7 +150,7 @@ def api_markdown():
         if hasattr(npg.PGModel, name):
             emit(name, getattr(npg.PGModel, name), "PGModel.")
 
-    out.append("\n## Distributed runtime (`nupgcm_tpu.parallel`)\n")
+    out.append("\n## Distributed runtime (`nupgcm.parallel`)\n")
     emit("make_device_mesh", make_device_mesh)
     emit("DDModel", DDModel)
     for name in ("run", "step", "multi_step", "refresh_precond",

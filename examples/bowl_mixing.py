@@ -5,7 +5,7 @@ examples/bowl_mixing.jl): set Parameters and Forcings, build a mesh,
 define Spaces with Dirichlet BCs, assemble the inversion + evolution
 systems, and run.
 
-Run:  python examples/bowl_mixing.py [--h 0.12] [--tpu]
+Run:  python examples/bowl_mixing.py [--h 0.12] [--gpu]
 """
 
 import argparse
@@ -17,21 +17,21 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--h", type=float, default=0.12, help="mesh resolution")
-    ap.add_argument("--tpu", action="store_true", help="run on the TPU backend")
+    ap.add_argument("--gpu", action="store_true", help="run on the GPU backend")
     ap.add_argument("--out", default="out/bowl_mixing")
     ap.add_argument("--steps", type=int, default=100)
     args = ap.parse_args()
 
     import jax
 
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
 
-    import nupgcm_tpu as npg
-    from nupgcm_tpu.io.checkpoint import save_state
-    from nupgcm_tpu.io.vtk import save_vtk
-    from nupgcm_tpu import plotting
+    import nupgcm as npg
+    from nupgcm.io.checkpoint import save_state
+    from nupgcm.io.vtk import save_vtk
+    from nupgcm import plotting
 
     os.makedirs(args.out, exist_ok=True)
 

@@ -3,7 +3,7 @@
 Demonstrates the x-periodic channel config (reference meshes/channel.jl
 geometry with gmsh setPeriodic replaced by dof-level identification).
 
-Run:  python examples/channel_spinup.py [--tpu]
+Run:  python examples/channel_spinup.py [--gpu]
 """
 
 import argparse
@@ -15,20 +15,20 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--h", type=float, default=0.06)
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--gpu", action="store_true")
     ap.add_argument("--out", default="out/channel")
     ap.add_argument("--steps", type=int, default=50)
     args = ap.parse_args()
 
     import jax
 
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
 
-    import nupgcm_tpu as npg
-    from nupgcm_tpu.io.vtk import save_vtk
-    from nupgcm_tpu.postprocess import Grid3, overturning_streamfunction
+    import nupgcm as npg
+    from nupgcm.io.vtk import save_vtk
+    from nupgcm.postprocess import Grid3, overturning_streamfunction
 
     os.makedirs(args.out, exist_ok=True)
 

@@ -16,7 +16,7 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    import nupgcm_tpu as npg
+    import nupgcm as npg
 
     params = npg.Parameters(eps=1.0, alpha=1.0, mu_rho=1.0, N2=0.0,
                             f=lambda x: 1.0 + 0 * x[0], H=lambda x: 1.0)

@@ -6,7 +6,7 @@ example closes that gap end-to-end: a stratified, rotating solid ball
 (f = z, the projection of the rotation axis) with a warm equatorial
 buoyancy anomaly spun up to thermal-wind balance.
 
-Run:  python examples/sphere.py [--n 6] [--tpu] [--steps 100]
+Run:  python examples/sphere.py [--n 6] [--gpu] [--steps 100]
 """
 
 import argparse
@@ -21,7 +21,7 @@ def main():
     ap.add_argument("--n", type=int, default=6,
                     help="cells per cube half-axis (resolution ~ 1/n)")
     ap.add_argument("--eps", type=float, default=0.1, help="Ekman number")
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--gpu", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--block", type=int, default=10)
     ap.add_argument("--out", default="out/sphere")
@@ -29,11 +29,11 @@ def main():
 
     import jax
 
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
 
-    import nupgcm_tpu as npg
+    import nupgcm as npg
 
     os.makedirs(args.out, exist_ok=True)
     mesh = npg.generators.sphere_mesh(args.n)
@@ -63,7 +63,7 @@ def main():
     state = model.set_b(model.rest_state(), b0)
 
     def save_cb(m, st, i):
-        from nupgcm_tpu.io.checkpoint import save_state
+        from nupgcm.io.checkpoint import save_state
 
         save_state(m, st, os.path.join(args.out, f"state_{i:08d}.npz"))
 

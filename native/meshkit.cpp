@@ -1,6 +1,6 @@
-// meshkit: native mesh-preprocessing kernels for nupgcm_tpu.
+// meshkit: native mesh-preprocessing kernels for nupgcm.
 //
-// The TPU compute path is JAX/XLA; this library covers the host-side
+// The device compute path is JAX/XLA; this library covers the host-side
 // setup that dominates wall-clock on large meshes (the role played by
 // the Gmsh C++ kernel + CuthillMcKee.jl in the reference):
 //   * gmsh .msh v4.1 ASCII parsing ($Nodes / $Elements)
@@ -9,7 +9,7 @@
 //   * balanced contiguous partitioning of cells by dof ranges
 //
 // Exposed as a plain C API consumed through ctypes
-// (nupgcm_tpu/mesh/native.py), with NumPy fallbacks when the shared
+// (nupgcm/mesh/native.py), with NumPy fallbacks when the shared
 // library is not built.  Build: `make -C native` (g++ -O3 -shared).
 
 #include <algorithm>

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nupgcm_tpu.fem import assembly as asm
-from nupgcm_tpu.fem.spaces import ScalarSpace
-from nupgcm_tpu.mesh.generators import box_mesh, rect_mesh
-from nupgcm_tpu.models.fedata import FEData, Spaces
-from nupgcm_tpu.ops.sparse import coo_from_plan
+from nupgcm.fem import assembly as asm
+from nupgcm.fem.spaces import ScalarSpace
+from nupgcm.mesh.generators import box_mesh, rect_mesh
+from nupgcm.models.fedata import FEData, Spaces
+from nupgcm.ops.sparse import coo_from_plan
 
 
 @pytest.fixture(scope="module", params=[2, 3])

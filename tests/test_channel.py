@@ -8,8 +8,8 @@ from itertools import combinations
 import numpy as np
 import pytest
 
-import nupgcm_tpu as npg
-from nupgcm_tpu.mesh.generators import channel2D, channel3D
+import nupgcm as npg
+from nupgcm.mesh.generators import channel2D, channel3D
 
 
 def test_channel2D_mesh():
@@ -87,7 +87,7 @@ def test_channel_wind_driven_jet():
     # along-channel (zonal) jet dominates
     assert np.abs(u[:, 0]).max() > 5 * np.abs(u[:, 1]).max()
     # periodicity: same values either side of the seam
-    from nupgcm_tpu.utils.pointeval import FieldEvaluator
+    from nupgcm.utils.pointeval import FieldEvaluator
 
     ev = FieldEvaluator(m3)
     pts0 = np.array([[0.001, 0.0, -0.2], [0.001, 0.1, -0.1]])
@@ -106,7 +106,7 @@ def test_channel_wind_driven_jet():
 def test_channel_basin_mesh():
     """Composite channel+basin geometry: conforming, positive cells,
     x-periodic channel seam, coastline only in the basin region."""
-    from nupgcm_tpu.mesh.generators import channel_basin
+    from nupgcm.mesh.generators import channel_basin
 
     m = channel_basin(0.1, alpha=0.2)
     _, d = m.cell_jacobians()
@@ -132,7 +132,7 @@ def test_channel_basin_mesh():
 def test_channel_basin_runs():
     """Wind-driven channel_basin spins up stably with the periodic
     seam active."""
-    from nupgcm_tpu.mesh.generators import channel_basin
+    from nupgcm.mesh.generators import channel_basin
 
     m = channel_basin(0.12, alpha=0.2)
     params = npg.Parameters(eps=0.3, alpha=0.2, mu_rho=1.0, N2=1.0,
@@ -171,7 +171,7 @@ def test_channel_basin_family_conforming_seam(gen_name):
     seam is EXACTLY conforming: all slave-plane edges have master
     edges, so no P2 dof falls back to weak coupling (the round-2 gap;
     reference meshes/channel_basin*.jl seam via gmsh setPeriodic)."""
-    from nupgcm_tpu.mesh import generators
+    from nupgcm.mesh import generators
 
     m = getattr(generators, gen_name)(0.1, alpha=0.2)
     _, d = m.cell_jacobians()
@@ -190,7 +190,7 @@ def test_channel_basin_family_conforming_seam(gen_name):
 
 def test_channel_basin_flat_exact_volume():
     """Flat variant is a box of depth H: volume is exact."""
-    from nupgcm_tpu.mesh.generators import channel_basin_flat
+    from nupgcm.mesh.generators import channel_basin_flat
 
     m = channel_basin_flat(0.1, alpha=0.2)
     _, d = m.cell_jacobians()
@@ -206,7 +206,7 @@ def test_channel_basin_refinement_grading():
     ~ h/r at bottom+surface, interior ~ h (the reference's
     Distance/Threshold near-boundary refinement,
     meshes/channel_basin.jl:131-147)."""
-    from nupgcm_tpu.mesh.generators import channel_basin
+    from nupgcm.mesh.generators import channel_basin
 
     r = 4
     m = channel_basin(0.1, alpha=0.2, refinement_factor=r)

@@ -12,8 +12,8 @@ the energy norm.
 
 import numpy as np
 import jax.numpy as jnp
-import nupgcm_tpu as npg
-from nupgcm_tpu.fem import assembly as asm
+import nupgcm as npg
+from nupgcm.fem import assembly as asm
 
 F0 = 1.0  # constant Coriolis
 A2E2 = 1.0  # alpha^2 eps^2 with eps = alpha = 1

@@ -12,7 +12,7 @@ data at /root/reference/test/data/*.jld2):
     (test/bowl_mixing_tests.jl:51-64) at machine precision.
 
 The reference->this-framework dof mapping is reconstructed in
-nupgcm_tpu/io/gridap.py and validated by the matrix test.
+nupgcm/io/gridap.py and validated by the matrix test.
 """
 
 import os
@@ -21,8 +21,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import nupgcm_tpu as npg
-from nupgcm_tpu.io import gridap as gi
+import nupgcm as npg
+from nupgcm.io import gridap as gi
 
 REF = "/root/reference"
 DATA = os.path.join(REF, "test", "data")
@@ -68,7 +68,7 @@ def _build(config, dtype=None):
     ts = npg.BDF2(t_start=0, t_stop=50 * dt, dt=dt)
     # the reference's golden states come from exact sparse direct
     # solves (src/iterative_solvers.jl:49-55 CPU fast path); tighten
-    # the Krylov tolerances accordingly.  In f32 (the TPU production
+    # the Krylov tolerances accordingly.  In f32 (the production
     # dtype) the tightest reachable tolerances are ~1e-7.
     if dtype is not None and dtype == jnp.float32:
         model = npg.PGModel(fe, params, forc, ts, dtype=dtype,
@@ -169,7 +169,7 @@ def test_golden_mixing_3d():
 
 
 def test_golden_mixing_2d_f32():
-    """f32 (the TPU production dtype) meets the reference's 1e-3
+    """f32 (the production dtype) meets the reference's 1e-3
     integral-norm bar over the full 50-step golden run (SURVEY #7(g)).
     Measured: rel-L2 u=1.4e-4, b=1.9e-6 -- an order of magnitude of
     headroom vs the f64 result (u=2e-4-ish dominated by the time

@@ -4,17 +4,17 @@ streamfunction diagnostics."""
 import numpy as np
 import pytest
 
-import nupgcm_tpu as npg
-from nupgcm_tpu.io.checkpoint import load_state, save_state
-from nupgcm_tpu.io.vtk import save_vtk, write_vtu
-from nupgcm_tpu.postprocess import (
+import nupgcm as npg
+from nupgcm.io.checkpoint import load_state, save_state
+from nupgcm.io.vtk import save_vtk, write_vtu
+from nupgcm.postprocess import (
     Grid3,
     barotropic_streamfunction,
     overturning_streamfunction,
     sample_state,
     stratification,
 )
-from nupgcm_tpu.utils.pointeval import FieldEvaluator
+from nupgcm.utils.pointeval import FieldEvaluator
 
 
 @pytest.fixture(scope="module")
@@ -131,8 +131,8 @@ def test_find_H_and_cached_slice(small_model, tmp_path):
     """find_H bisection recovers the bowl depth (reference find_H,
     src/plotting.jl:38-52); the cached slice plot bundle reuses point
     locations across saves (reference cache pattern)."""
-    from nupgcm_tpu.plotting import SliceCache, plot_slice, sim_plots
-    from nupgcm_tpu.utils.pointeval import FieldEvaluator, find_H
+    from nupgcm.plotting import SliceCache, plot_slice, sim_plots
+    from nupgcm.utils.pointeval import FieldEvaluator, find_H
 
     model, state = small_model
     ev = FieldEvaluator(model.fe.mesh)
@@ -163,7 +163,7 @@ def test_find_H_and_cached_slice(small_model, tmp_path):
 def test_publication_plots_3d(small_model, tmp_path):
     """The publication plot products render on a 3D model (reference
     postprocess/psi2d.py, streamfunctions.py, slice.py roles)."""
-    from nupgcm_tpu import plotting as P
+    from nupgcm import plotting as P
 
     model, st = small_model
     g = Grid3.from_mesh(model.fe.mesh, nx=24, ny=24, nz=12)
@@ -186,7 +186,7 @@ def test_publication_plots_channel(tmp_path):
     """Channel2D plot products (reference postprocess/channel2D.py
     plot_psib/plot_uvwb/plot_fieldb/plot_psi_profile/
     plot_surface_b_flux)."""
-    from nupgcm_tpu import plotting as P
+    from nupgcm import plotting as P
 
     eps, alpha, mu = 2e-1, 0.5, 1e1
     params = npg.Parameters(eps=eps, alpha=alpha, mu_rho=mu, N2=1 / alpha,

@@ -6,9 +6,9 @@ from itertools import combinations
 import numpy as np
 import pytest
 
-from nupgcm_tpu.mesh.core import Mesh, unique_edges
-from nupgcm_tpu.mesh.generators import bowl2D, bowl3D, box_mesh, rect_mesh
-from nupgcm_tpu.mesh.gmsh_reader import read_msh
+from nupgcm.mesh.core import Mesh, unique_edges
+from nupgcm.mesh.generators import bowl2D, bowl3D, box_mesh, rect_mesh
+from nupgcm.mesh.gmsh_reader import read_msh
 
 
 def face_conformity(mesh: Mesh):
@@ -81,7 +81,7 @@ def test_unique_edges_roundtrip():
     m = box_mesh(2, 2, 2)
     edges, cell_edges = unique_edges(m.cells)
     # each cell's local edge k connects the LOCAL_EDGES vertex pair
-    from nupgcm_tpu.fem.reference import LOCAL_EDGES
+    from nupgcm.fem.reference import LOCAL_EDGES
 
     led = np.array(LOCAL_EDGES[3])
     for ci in range(min(10, m.n_cells)):
@@ -143,7 +143,7 @@ def test_gmsh_reader(tmp_path):
 def test_msh_writer_roundtrip(tmp_path):
     """write_msh -> read_msh preserves vertices, cells (as sets), and
     physical-group closures for 2D and 3D generated meshes."""
-    from nupgcm_tpu.mesh.writer import write_msh
+    from nupgcm.mesh.writer import write_msh
 
     for name, mesh in [
         ("bowl3D", bowl3D(0.3, 0.5, nz=3)),
@@ -167,7 +167,7 @@ def test_msh_writer_roundtrip(tmp_path):
 def test_quality_stats():
     """Inner-angle/volume statistics parity with the reference's
     quality tooling (meshes/mesh_quality.jl:16-115)."""
-    from nupgcm_tpu.mesh.quality import inner_angles, volumes, stats, quality_report
+    from nupgcm.mesh.quality import inner_angles, volumes, stats, quality_report
 
     # equilateral triangle: all angles 60
     coords = np.array([[0, 0, 0], [1, 0, 0], [0.5, math.sqrt(3) / 2, 0]])

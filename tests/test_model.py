@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import nupgcm_tpu as npg
+import nupgcm as npg
 
 
 def integral_l2(fe, field_vals, cell_dofs, phi):
@@ -451,6 +451,40 @@ def test_precond_refresh_tracks_eddy_nu():
                          tau_y=0.0, b_surface_bc=npg.SurfaceDirichletBC(0.0))
     m2 = npg.PGModel(fe, params, forc2, ts)
     assert m2.refresh_precond(m2.ops, m2.rest_state()) is m2.ops
+
+
+def test_refresh_precond_twogrid_dense_coarse():
+    """refresh_precond on the u-block two-grid path with a dense coarse
+    inverse: the rebuild replaces coarse_inv and needs no coarse
+    diagonal (it used to read the absent coarse_e and raise KeyError)."""
+    alpha = 0.5
+    mesh = npg.generators.bowl2D(0.2, alpha)
+    spaces = npg.Spaces(
+        mesh, u_diri_tags=["bottom", "coastline", "surface"],
+        u_diri_vals=[(0, 0, 0)] * 3,
+        u_diri_masks=[(True, True, True), (True, True, True),
+                      (False, False, True)],
+        b_diri_tags=["coastline", "surface"], b_diri_vals=[0.0, 0.0])
+    fe = npg.FEData(mesh, spaces)
+    params = npg.Parameters(eps=2e-1, alpha=alpha, mu_rho=1e1, N2=1 / alpha,
+                            f=lambda x: 1.0 + 0.5 * x[1],
+                            H=lambda x: alpha * (1 - x[0] ** 2 - x[1] ** 2))
+    forc = npg.Forcings(
+        nu=1.0, kappa_h=1e-2, kappa_v=1e-2, tau_x=0.0, tau_y=0.0,
+        b_surface_bc=npg.SurfaceDirichletBC(0.0),
+        eddy_param=npg.EddyParameterization(
+            f=lambda x: 1.0 + 0.5 * x[1], N2_min=1e-2))
+    ts = npg.BDF2(t_start=0, t_stop=1e9, dt=1e-2)
+    m = npg.PGModel(fe, params, forc, ts, saddle_coarse=False, twogrid=True)
+    assert m.twogrid and m.coarse_dense
+    st = m.set_b(m.rest_state(), lambda x: 0.1 * x[2])
+    new_ops = m.refresh_precond(m.ops, st)
+    assert "coarse_e" not in new_ops and "coarse_dinv" not in new_ops
+    assert np.abs(np.asarray(new_ops["coarse_inv"])
+                  - np.asarray(m.ops["coarse_inv"])).max() > 0
+    m.ops = new_ops
+    _, _, aux = m.multi_step_jit(m.ops, st, 1)
+    assert np.isfinite(float(np.asarray(aux["inv_res"])[-1]))
 
 
 def test_saddle_coarse_l2_aggregate_level():

@@ -21,7 +21,7 @@ def _spawn(nproc, pid, port, steps):
     env["JAX_PLATFORMS"] = "cpu"
     env.pop("PYTEST_CURRENT_TEST", None)
     return subprocess.Popen(
-        [sys.executable, "-m", "nupgcm_tpu.tools.multihost_dryrun",
+        [sys.executable, "-m", "nupgcm.tools.multihost_dryrun",
          "--nproc", str(nproc), "--pid", str(pid), "--port", str(port),
          "--steps", str(steps)],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -44,7 +44,7 @@ def test_two_process_dd_step_matches_single_process():
         assert a[k] == b[k], (k, a[k], b[k])  # bitwise-replicated scalars
 
     # single-process reference with the same 8-shard partition
-    from nupgcm_tpu.tools.multihost_dryrun import run
+    from nupgcm.tools.multihost_dryrun import run
 
     ref = run(n_steps=2)
     assert ref["n_devices"] == 8

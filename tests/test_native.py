@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from nupgcm_tpu.mesh import native
-from nupgcm_tpu.mesh.core import unique_edges as py_unique_edges
-from nupgcm_tpu.mesh.generators import bowl3D
+from nupgcm.mesh import native
+from nupgcm.mesh.core import unique_edges as py_unique_edges
+from nupgcm.mesh.generators import bowl3D
 
 
 @pytest.fixture(scope="module")
@@ -32,7 +32,7 @@ def test_rcm_valid_and_effective(lib, mesh):
     import scipy.sparse as sp
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 
-    from nupgcm_tpu.fem.spaces import ScalarSpace
+    from nupgcm.fem.spaces import ScalarSpace
 
     s = ScalarSpace(mesh, 2)
     rows = np.repeat(s.cell_dofs, s.nloc, axis=1).ravel()
@@ -58,7 +58,7 @@ def test_rcm_valid_and_effective(lib, mesh):
 
 
 def test_partition_cells(lib, mesh):
-    from nupgcm_tpu.fem.spaces import ScalarSpace
+    from nupgcm.fem.spaces import ScalarSpace
 
     s = ScalarSpace(mesh, 2)
     s.renumber(s.rcm_permutation())  # contiguity needs RCM order

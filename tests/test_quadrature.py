@@ -6,7 +6,7 @@ from itertools import product
 import numpy as np
 import pytest
 
-from nupgcm_tpu.fem.quadrature import simplex_rule
+from nupgcm.fem.quadrature import simplex_rule
 
 
 def exact_monomial_integral(alpha):

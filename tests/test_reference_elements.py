@@ -4,8 +4,8 @@ polynomial reproduction."""
 import numpy as np
 import pytest
 
-from nupgcm_tpu.fem.quadrature import simplex_rule
-from nupgcm_tpu.fem.reference import local_node_coords, tabulate
+from nupgcm.fem.quadrature import simplex_rule
+from nupgcm.fem.reference import local_node_coords, tabulate
 
 
 @pytest.mark.parametrize("tdim", [2, 3])

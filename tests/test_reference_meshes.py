@@ -8,7 +8,7 @@ import os
 import numpy as np
 import pytest
 
-import nupgcm_tpu as npg
+import nupgcm as npg
 
 REF = "/root/reference/meshes"
 
@@ -112,7 +112,7 @@ def test_bowl3D_wind_flux_golden(tmp_path):
     test/bowl_wind_tests.jl + test/bowl_surface_flux_tests.jl;
     BASELINE.md config #2).  Self-seeding golden fixture, the
     reference's own pattern (test/bowl_mixing_tests.jl:52-56)."""
-    from nupgcm_tpu.io import checkpoint as ck
+    from nupgcm.io import checkpoint as ck
 
     mesh = npg.read_msh(f"{REF}/bowl3D_1.000000e-01_5.000000e-01.msh")
     model, state0 = wind_flux_model(mesh, nsteps=50)

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nupgcm_tpu.solvers.cg import cg
-from nupgcm_tpu.solvers.gmres import gmres
+from nupgcm.solvers.cg import cg
+from nupgcm.solvers.gmres import gmres
 
 
 @pytest.fixture(scope="module")

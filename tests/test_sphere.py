@@ -7,7 +7,7 @@ the beta-plane Coriolis projection)."""
 import numpy as np
 import pytest
 
-import nupgcm_tpu as npg
+import nupgcm as npg
 
 
 @pytest.fixture(scope="module")
@@ -41,7 +41,7 @@ def test_sphere_mesh_geometry():
     assert np.allclose(r[bnodes], 1.0, atol=1e-12)
     # positive total volume ~ 4/3 pi (cube-to-ball map distorts cells
     # but keeps orientation)
-    from nupgcm_tpu.mesh.quality import volumes
+    from nupgcm.mesh.quality import volumes
 
     vol = volumes(mesh.coords, mesh.cells).sum()
     assert abs(vol - 4.0 / 3.0 * np.pi) / (4.0 / 3.0 * np.pi) < 0.05

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-import nupgcm_tpu as npg
-from nupgcm_tpu.io.jld2 import export_state, import_state, read_jld2
-from nupgcm_tpu.tools.column import ColumnModel, fd_stencil
+import nupgcm as npg
+from nupgcm.io.jld2 import export_state, import_state, read_jld2
+from nupgcm.tools.column import ColumnModel, fd_stencil
 
 
 def test_fd_stencil_exactness():
@@ -106,7 +106,7 @@ def test_read_reference_jld2():
 
 def test_plot_tri_mesh_and_wave(tiny_model, tmp_path):
     model, st = tiny_model
-    from nupgcm_tpu.plotting import plot_slice_wave, plot_tri_mesh
+    from nupgcm.plotting import plot_slice_wave, plot_tri_mesh
 
     f1 = plot_tri_mesh(model, np.asarray(st.b), ofile=str(tmp_path / "tri.png"))
     sp = model.fe.spaces

@@ -1,8 +1,7 @@
 """DD (sharded-state) bench: iteration invariance + comm volume.
 
-Runs on 8 VIRTUAL CPU devices (the environment has one TPU chip;
-multi-chip hardware is unavailable), so wall-clock here measures
-mechanics, not TPU throughput.  What IS meaningful and reported:
+Runs on 8 VIRTUAL CPU devices, so wall-clock here measures
+mechanics, not device throughput.  What IS meaningful and reported:
 
   * halo depth K per space at each shard count (K=1 = the
     band-limited regime the DD design argues for, parallel/dd.py),
@@ -10,7 +9,7 @@ mechanics, not TPU throughput.  What IS meaningful and reported:
     is replicated-coarse + local smoothing: iteration invariance
     across S is the property that makes multi-chip scaling work),
   * analytic per-matvec halo-exchange volume (ppermute bytes), the
-    ICI traffic a real pod would carry, vs the element-tensor bytes
+    traffic the device links would carry, vs the element-tensor bytes
     each shard streams locally (compute:comm ratio).
 
 Launched by bench.py section E as a subprocess with
@@ -25,16 +24,16 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+# CPU only: the parent process (bench.py) holds the GPU
+os.environ["JAX_PLATFORMS"] = "cpu"
 
-jax.config.update("jax_platforms", "cpu")
-
+import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
 
 def main():
-    import nupgcm_tpu as npg
-    from nupgcm_tpu.parallel.dd import DDModel
+    import nupgcm as npg
+    from nupgcm.parallel.dd import DDModel
 
     eps, alpha, mu = 2e-1, 0.5, 1e1
     params = npg.Parameters(
@@ -72,7 +71,7 @@ def main():
 
     for S in (2, 8):
         m = npg.PGModel(fe, params, forc, ts)
-        from nupgcm_tpu.parallel.sharding import make_device_mesh
+        from nupgcm.parallel.sharding import make_device_mesh
 
         dd = DDModel(m, S, mesh=make_device_mesh(S))
         st = dd.to_dd(m.set_b(m.rest_state(), bic))
